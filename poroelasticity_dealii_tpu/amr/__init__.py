@@ -1,6 +1,6 @@
 """Adaptive mesh refinement (2D quadtree / 3D octree).
 
-TPU-native re-design of the reference's AMR pipeline
+Accelerator re-design of the reference's AMR pipeline
 (``PoroelasticityFSS.h:448-498``): Kelly error estimation on the pressure
 solution, fixed-*error*-fraction refine/coarsen marking with level clamps,
 1-irregular quadtree conformity, hanging-node constraints for the Q1/Q2

@@ -2,16 +2,16 @@
 compiled executables.
 
 Every remesh changes ``(n_cells, n_pdofs, n_udofs, H_p, H_u)`` and XLA must
-recompile the whole jitted time step for the new shapes — measured 2-6 s on
-CPU and ~26-39 s on TPU per shape change, the dominant AMR cost (the
-reference pays nothing here because deal.II assembles eagerly,
-``PoroelasticityFSS.h:448-498``; SURVEY §7 names "host remesh + bucketed
-recompile" as the TPU-idiomatic answer).  Padding all five sizes up to
+recompile the whole jitted time step for the new shapes — seconds per
+shape change, the dominant AMR cost (the reference pays nothing here
+because deal.II assembles eagerly, ``PoroelasticityFSS.h:448-498``; SURVEY
+§7 names "host remesh + bucketed recompile" as the compiled-program
+answer).  Padding all five sizes up to
 geometric buckets makes nearby meshes land on identical shapes: the
 lowered HLO depends only on shapes (mesh arrays are closed-over device
 constants, passed as runtime parameters), so with the persistent compile
-cache a bucket revisit costs one re-trace + cache load (~0.7-0.9 s
-measured) instead of a full compile.
+cache a bucket revisit costs one re-trace + cache load instead of a full
+compile.
 
 Padding is EXACT, not approximate, by the same invariants the row-layout
 kernel padding uses:

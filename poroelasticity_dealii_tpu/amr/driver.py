@@ -101,7 +101,7 @@ class AMRSimulationRunner:
             self._fused = False
         self.data = data
         self.scales = scales
-        from ..models.runner import enable_compile_cache
+        from ..utils.compile_cache import enable_compile_cache
         enable_compile_cache()   # shape buckets + cache = cheap remeshes
         if getattr(data, "mesh_file", None):
             # forest-of-roots over the imported coarse mesh — the deal.II
@@ -137,7 +137,7 @@ class AMRSimulationRunner:
             # (tests/test_sharding.py::test_sharded_amr_mesh_1_vs_8);
             # re-applied after every remesh
             from ..models.runner import _apply_sharding
-            self.disc = _apply_sharding(self.disc, self.data)
+            self.disc, _ = _apply_sharding(self.disc, self.data)
         elif sharding != "none":
             raise NotImplementedError(
                 f"'TPU / Sharding = {sharding}' with AMR — only 'psum' "

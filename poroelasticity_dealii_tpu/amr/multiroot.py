@@ -4,7 +4,7 @@ deal.II refines any ``Triangulation`` — including one read from gmsh
 (``/root/reference/lib/include/PoroelasticityFSS.h:439-445`` feeding
 ``refine_mesh`` at ``:448-498``): the coarse cells are the forest roots and
 refinement subdivides each root's reference square.  This module is the
-TPU-native equivalent of that model, generalizing :class:`.forest.QuadForest`
+array-based equivalent of that model, generalizing :class:`.forest.QuadForest`
 (one axis-aligned root) to a forest rooted on the cells of an imported
 ``.msh``: each root carries a bilinear map from the unit square onto its
 (possibly distorted) physical quad, and all refinement bookkeeping runs in

@@ -15,7 +15,7 @@ import sys
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="poroelasticity_dealii_tpu",
-        description="TPU-native Biot poroelasticity solver")
+        description="Biot poroelasticity solver (fixed-stress splitting)")
     sub = parser.add_subparsers(dest="command", required=True)
 
     run_p = sub.add_parser("run", help="run a simulation from a deck file")
@@ -25,7 +25,7 @@ def main(argv=None):
     run_p.add_argument("--x64", action="store_true",
                        help="force float64 (overrides deck TPU/Dtype)")
     run_p.add_argument("--platform", default=None,
-                       help="jax platform override (cpu/tpu)")
+                       help="jax platform override (cpu/gpu)")
     run_p.add_argument("--profile", default=None, metavar="LOGDIR",
                        help="capture a TensorBoard device trace of the run")
 

@@ -158,14 +158,15 @@ _SCHEMA = {
     ("Solver", "Max pressure iterations"): ("50", _int(1, 1000)),
     ("Solver", "FSS tolerance"): ("1e-8", _dbl(1e-20, 1e-1)),
     ("Solver", "Pressure tolerance"): ("1e-8", _dbl(1e-20, 1e-1)),
-    # TPU section — new (no reference counterpart; serial CPU code)
+    # 'TPU' section (the deck name of the solver-settings section) — new,
+    # no reference counterpart (serial CPU code)
     ("TPU", "Dtype"): ("float64", _str({"float32", "float64"})),
     ("TPU", "Output directory"): ("./solution", _str()),
     ("TPU", "Output VTK"): ("true", _str({"true", "false"})),
     ("TPU", "Checkpoint every"): ("0", _int(0)),
     # host-sync cadence: with N > 1 the runner dispatches N steps
     # back-to-back (JAX async) and reads stats/logs at sync points only —
-    # per-step blocking costs ~35 ms of host round-trip on remote TPUs
+    # per-step blocking costs one host<->device round trip per step
     ("TPU", "Sync every"): ("1", _int(1)),
     # step-fusion cadence: with K > 1 the runner executes K time steps as
     # ONE jitted lax.scan dispatch (FixedStressSolver.multi_step) — the
@@ -186,8 +187,8 @@ _SCHEMA = {
     # Shape bucketing for adaptive runs: pad cells/dofs/constraint tables
     # to geometric size buckets so remeshes that land in the same buckets
     # reuse compiled executables (with the persistent compile cache, a
-    # bucket revisit costs a ~0.7 s re-trace instead of a 2-6 s CPU /
-    # ~26-39 s TPU recompile).  Padding is float-exact (phantom cells
+    # bucket revisit costs a re-trace instead of a recompile).  Padding is
+    # float-exact (phantom cells
     # carry zero quadrature weight; phantom dofs are pinned to zero).
     ("TPU", "AMR bucketing"): ("true", _str({"true", "false"})),
     # linear-solver tolerances (defaults = the reference's hardcoded values:
@@ -212,17 +213,16 @@ _SCHEMA = {
     # replicates that and 0..dim-1 actually enables it.
     ("TPU", "Gravity direction"): ("-1", _int(-1, 2)),
     ("TPU", "Debug NaNs"): ("false", _str({"true", "false"})),
-    # Elasticity operator backend on structured grids: 'pallas' runs the
-    # mechanics CG in the comp-major row layout through the fused Pallas
-    # kernel (ops/pallas_comp_major.py, 3D Q2, TPU only); 'parity' runs it
-    # in the 2D parity-class layout (ops/parity2d.py, 2D Q2, any backend);
-    # 'conv' keeps the XLA-convolution stencil; 'auto' picks pallas when
-    # eligible (3D Q2, equal cells per axis, TPU backend) and parity when
-    # eligible and the problem is large enough to matter (2D Q2, equal
-    # cells, >= 150k displacement dofs).
-    ("TPU", "Elasticity backend"): ("auto", _str({"auto", "conv", "pallas",
-                                                  "parity"})),
-    # Mechanics CG preconditioner on the row-layout (pallas) path:
+    # Elasticity operator backend on structured grids: 'rows' runs the
+    # mechanics CG in the 3D comp-major row layout (ops/rows3d.py, 3D Q2,
+    # equal cells per axis); 'parity' runs it in the 2D parity-class layout
+    # (ops/parity2d.py, 2D Q2, equal cells per axis); 'conv' keeps the
+    # XLA-convolution stencil; 'auto' picks rows/parity when eligible and
+    # the problem is large enough to matter (>= 150k displacement dofs).
+    # 'pallas' is accepted as an alias of 'rows' for older decks.
+    ("TPU", "Elasticity backend"): ("auto", _str({"auto", "conv", "rows",
+                                                  "pallas", "parity"})),
+    # Mechanics CG preconditioner on the 3D row-layout path:
     # 'block' couples each node's 3 displacement components through the
     # inverted 3x3 diagonal block of the constrained operator (node-block
     # Jacobi); 'jacobi' is the scalar diagonal.  Default jacobi: on
@@ -236,10 +236,9 @@ _SCHEMA = {
                                           _str({"jacobi", "block"})),
     # float64 mechanics via mixed-precision iterative refinement: f64
     # Richardson outer loop whose preconditioner is a full f32 inner solve
-    # on the (normalized) residual — f64 accuracy at f32-kernel speed.
-    # 'auto' enables it on TPU only (where f64 is emulated and the f64
-    # GMG-CG mechanics solve costs ~35 s/step at 40^3 vs ~0.4 s refined);
-    # native-f64 CPUs gain nothing.  Structured conv grids only.
+    # on the (normalized) residual — f64 accuracy at f32 solve speed, for
+    # devices whose f64 is slow.  'auto' means off (CPUs and the GPUs this
+    # runs on have native f64); 'on' builds it.  Structured conv grids only.
     ("TPU", "Mixed precision refinement"): ("auto",
                                             _str({"auto", "on", "off"})),
     # Multi-chip domain decomposition for the runner (parallel/):
@@ -247,8 +246,8 @@ _SCHEMA = {
     #   psum       - element shard_map + full-vector psum (any mesh, AMR ok)
     #   ghost      - sharded DOF vectors + interface halo ppermutes
     #   gspmd      - conv-stencil GSPMD slab sharding (structured grids)
-    #   production - z-slab sharded Pallas row ops + GSPMD stencils
-    #                (structured 3D Q2 grids)
+    #   production - z-slab sharded row ops (3D) / y-slab sharded parity
+    #                ops (2D) + GSPMD stencils (structured Q2 grids)
     ("TPU", "Sharding"): ("none", _str({"none", "psum", "ghost", "gspmd",
                                         "production"})),
     ("TPU", "Devices"): ("0", _int(0)),   # 0 = all visible devices
@@ -295,7 +294,7 @@ class InputData:
     displacement_boundary_values: Tuple[float, ...]
     pressure_boundary_labels: Tuple[int, ...] = ()
     pressure_boundary_values: Tuple[float, ...] = ()
-    # TPU-native extras
+    # solver settings (deck section 'TPU')
     dtype: str = "float64"
     output_directory: str = "./solution"
     output_vtk: bool = True

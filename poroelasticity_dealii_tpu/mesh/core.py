@@ -1,6 +1,6 @@
 """Immutable structure-of-arrays mesh and FE-space containers.
 
-The TPU-native replacement for deal.II's ``Triangulation`` + ``DoFHandler``
+The array-based replacement for deal.II's ``Triangulation`` + ``DoFHandler``
 pair (reference ``PoroelasticityFSS.h:75-79``): plain int32/float64 arrays
 that shard and gather well, instead of pointer-based cell iterators.
 """

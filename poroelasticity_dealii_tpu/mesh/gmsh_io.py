@@ -1,6 +1,6 @@
 """gmsh 2.2 ASCII ``.msh`` reader -> SoA :class:`Mesh`.
 
-The TPU-native replacement for the reference's ``GridIn::read_msh`` path
+The array-based replacement for the reference's ``GridIn::read_msh`` path
 (``PoroelasticityFSS.h:439-445``, asset ``domain.msh``): quads/hexes become
 the cell array, boundary lines/quads with physical tags become boundary faces
 with their labels (the deal.II convention of physical-group id == boundary

@@ -25,104 +25,38 @@ from ..solvers import FixedStressSolver, build_discretization
 from ..solvers.fss import State
 from ..utils.checkpoint import (load_checkpoint_any, save_checkpoint,
                                 save_checkpoint_orbax, wait_for_checkpoints)
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.logging_utils import RunLogger
 from ..utils.vtk_io import displacement_at_pressure_nodes, write_vtk
-
-
-def _host_cache_tag() -> str:
-    """Digest of this host's CPU features, used to segregate the persistent
-    compile cache per machine.  XLA:CPU cache entries are AOT results that
-    embed the *compile* machine's CPU feature set; loading them on a host
-    with different features is explicitly unsupported (the loader warns
-    "could lead to execution errors such as SIGILL") and was observed to
-    corrupt execution after a VM migration: an 8-virtual-device
-    collective-permute rendezvous split 4/4 across two op-ids and
-    CHECK-failed (deterministic abort in
-    test_production_multi_step_sharded_matches_sequential until the stale
-    cache was bypassed).  TPU executables are serialized for the device,
-    not the host, so the tag merely costs them one cold re-fill per
-    machine.  Reads only /proc/cpuinfo — never initializes jax backends
-    (dryrun_multichip relies on import-time purity here)."""
-    import hashlib
-    import platform
-
-    txt = platform.machine()
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("flags"):
-                    txt += " ".join(sorted(line.split(":", 1)[1].split()))
-                    break
-    except OSError:
-        pass
-    return hashlib.sha1(txt.encode()).hexdigest()[:12]
-
-
-def enable_compile_cache():
-    """Turn on JAX's persistent compilation cache (no-op if the caller
-    already configured one).  Pays off twice: across PROCESS runs of the
-    same deck (restart = cache hit instead of a cold multi-second
-    compile), and within adaptive runs, where shape bucketing
-    (amr/bucketing.py) makes remeshes land on previously compiled
-    shapes — a bucket revisit then costs a ~0.7 s re-trace instead of a
-    2-6 s CPU / ~26-39 s TPU XLA compile (measured, golden AMR deck).
-    The directory is keyed by :func:`_host_cache_tag` so entries never
-    cross machines (see that docstring for the failure this prevents).
-
-    Refuses outright in a forced virtual-multi-device CPU process
-    (``--xla_force_host_platform_device_count=N>1``): warm-loading
-    sharded executables there can poison the in-process collective
-    rendezvous for later scan-fused sharded programs (observed: a
-    freshly compiled ``multi_step`` deadlocked 4/4 across two
-    collective-permute op-ids after earlier sharded programs in the
-    same process were cache-loaded; see
-    ``utils.backend_quirks.no_persistent_cache_for_cpu_collectives``).  That mode only
-    exists for sharding tests/dryruns, where compile time is not the
-    product concern."""
-    import re
-
-    import jax
-    m = re.search(r"xla_force_host_platform_device_count=(\d+)",
-                  os.environ.get("XLA_FLAGS", ""))
-    if m and int(m.group(1)) > 1:
-        return
-    try:
-        if jax.config.jax_compilation_cache_dir:
-            return
-        path = os.path.join(os.path.expanduser("~"), ".cache",
-                            "poroelasticity_dealii_tpu",
-                            "xla-" + _host_cache_tag())
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:        # cache is an optimization, never a failure
-        pass
 
 
 def _apply_sharding(disc, data: InputData):
     """'TPU / Sharding = psum|ghost|gspmd|production': wrap the built
     discretization in the requested multi-chip domain decomposition
     (parallel/); 'TPU / Devices = N' limits the mesh (0 = all visible).
-    The solver runs unchanged on the wrapped discretization."""
+    The solver runs unchanged on the wrapped discretization.  Returns
+    ``(disc, n_devices)`` — 1 when it ran unsharded."""
     from ..parallel import make_device_mesh
     dmesh = make_device_mesh(data.n_devices or None)
     mode = data.sharding
-    if dmesh.devices.size < 2 and mode != "none":
+    n = dmesh.devices.size
+    if n < 2 and mode != "none":
         import warnings
         warnings.warn(f"'TPU / Sharding = {mode}' with a single visible "
                       "device: running unsharded", RuntimeWarning)
-        return disc
+        return disc, 1
     if mode == "psum":
         from ..parallel import shard_discretization
-        return shard_discretization(disc, dmesh)
+        return shard_discretization(disc, dmesh), n
     if mode == "ghost":
         from ..parallel import shard_discretization_ghost
-        return shard_discretization_ghost(disc, dmesh)
+        return shard_discretization_ghost(disc, dmesh), n
     if mode == "gspmd":
         from ..parallel import shard_grid_discretization
-        return shard_grid_discretization(disc, dmesh)
+        return shard_grid_discretization(disc, dmesh), n
     if mode == "production":
         from ..parallel.rows import shard_production_discretization
-        return shard_production_discretization(disc, dmesh)
+        return shard_production_discretization(disc, dmesh), n
     raise ValueError(f"unknown sharding mode {mode!r}")
 
 
@@ -150,8 +84,15 @@ class SimulationRunner:
             # uniform rectilinear domain: gather/scatter-free fast path
             from ..solvers.structured import build_grid_discretization
             self.disc = build_grid_discretization(data)
+        n_devices = 1
         if getattr(data, "sharding", "none") != "none":
-            self.disc = _apply_sharding(self.disc, data)
+            self.disc, n_devices = _apply_sharding(self.disc, data)
+        from ..solvers.structured import mechanics_backend_name
+        # what every run-log record names: the mechanics path actually
+        # built and the number of devices the state is sharded over
+        self.log_extra = {"mechanics_backend":
+                          mechanics_backend_name(self.disc),
+                          "devices": n_devices}
         self.mesh = self.disc.pressure_space.mesh
         self.solver = FixedStressSolver(self.disc, data)
         self.logger = logger or RunLogger(
@@ -203,7 +144,7 @@ class SimulationRunner:
                 return
             last_state.p.block_until_ready()
             for (s, ts, stats, st, wall) in pending:
-                self.logger.log_step(s, ts, stats, wall)
+                self.logger.log_step(s, ts, stats, wall, self.log_extra)
                 if st is not None:
                     self.output(st, s)
                 if data.checkpoint_every and s % data.checkpoint_every == 0:

@@ -1,2 +1,2 @@
 """Batched FEM compute: quadrature/shape tables, element operators, and
-matrix-free operator applies (gather -> batched MXU matvec -> segment_sum)."""
+matrix-free operator applies (gather -> batched matvec -> segment_sum)."""

@@ -33,7 +33,7 @@ def geometry_factors(corner_xyz, quad_points, quad_weights):
       ``grad_x phi[d] = sum_m jinv[m, d] * grad_ref phi[m]``.
 
     Dispatches on input type: numpy in -> numpy out (setup stays on the
-    host, avoiding slow emulated-f64 TPU work), jnp in -> jnp out.
+    host, with no device dispatch), jnp in -> jnp out.
     """
     xp = jnp if isinstance(corner_xyz, jnp.ndarray) else np
     dim = corner_xyz.shape[-1]
@@ -57,7 +57,7 @@ def geometry_factors(corner_xyz, quad_points, quad_weights):
             xp.stack([-c * inv_det, a * inv_det], axis=-1),
         ], axis=-2)
     else:
-        # explicit adjugate: batched tiny LU is unsupported/slow on TPU
+        # explicit adjugate: cheaper than a batched tiny LU
         a = jac
         c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
         c01 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]

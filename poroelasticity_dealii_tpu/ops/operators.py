@@ -5,17 +5,17 @@ Replaces the reference's global ``SparseMatrix`` SpMVs and cell-loop assembly
 ``PoroElasticDisplacementSolver.h:155-291``, ``StrainProjector.h:109-198``)
 with sum-factorized on-the-fly quadrature:
 
-    gather dofs -> shared-table contraction (MXU matmul) -> pointwise
-    geometric factors (VPU) -> transpose contraction (MXU) ->
+    gather dofs -> shared-table contraction (matmul) -> pointwise
+    geometric factors -> transpose contraction (matmul) ->
     deterministic segment-sum scatter.
 
-TPU layout decision (load-bearing): all per-cell arrays are **cells-last**
+Layout decision (load-bearing): all per-cell arrays are **cells-last**
 ("structure of arrays"): connectivity ``(n_local, E)``, Jacobian factors
-``(Q, dim, dim, E)``, weights ``(Q, E)``.  The cell index lives in the
-128-wide lane dimension, so every elementwise op runs at full VPU width and
-the two big shared-table contractions lower to clean MXU matmuls
-``(Q*dim, N) @ (N, comp*E)``.  A cells-first layout leaves trailing dims of
-3/9 that waste ~97% of each vector register — measured 20x slower.
+``(Q, dim, dim, E)``, weights ``(Q, E)``.  The cell index is the minor
+(contiguous) dimension, so every elementwise op is a long unit-stride
+stream and the two big shared-table contractions lower to plain matmuls
+``(Q*dim, N) @ (N, comp*E)``.  A cells-first layout leaves trailing dims
+of 3/9 that vectorize poorly.
 
 Per apply this reads only O(E*Q*dim^2) Jacobian factors from HBM instead of
 O(E*ndof^2) stored element matrices — ~25x less HBM traffic for Q2/3D.
@@ -68,8 +68,8 @@ def _scatter_add_host(values, conn, n_dofs):
 # factors may broadcast over cells (trailing dim 1) for uniform grids.
 #
 # The dim-sized contractions with jinv are unrolled into broadcast
-# multiply-adds: einsum would lower them to batched 3x3 dots, which the TPU
-# executes an order of magnitude slower than plain VPU fma chains.
+# multiply-adds: einsum would lower them to batched 3x3 dots, which run far
+# slower than plain fused multiply-add chains.
 # --------------------------------------------------------------------------
 
 def _apply_jinv(r, jinv):
@@ -114,7 +114,7 @@ def elasticity_core(ue, dref, jinv, jxw, lam, mu):
     """
     Q, N, dim = dref.shape
     E = ue.shape[-1]
-    r = jnp.einsum("qnm,niE->qmiE", dref, ue)        # MXU: (Q*m, N)@(N, i*E)
+    r = jnp.einsum("qnm,niE->qmiE", dref, ue)        # GEMM: (Q*m, N)@(N, i*E)
     h = _apply_jinv(r, jinv)                         # grad u (Q, i, j, E)
     tr = sum(h[:, i, i] for i in range(dim))
     sig = mu * (h + jnp.swapaxes(h, 1, 2))
@@ -122,7 +122,7 @@ def elasticity_core(ue, dref, jinv, jxw, lam, mu):
     sig = sig + (lam * tr)[:, None, None, :] * eye
     s = sig * jxw[:, None, None, :]
     t = _apply_jinv_T(s, jinv)
-    ye = jnp.einsum("qnm,qmiE->niE", dref, t)        # MXU: (N, Q*m)@(Q*m, i*E)
+    ye = jnp.einsum("qnm,qmiE->niE", dref, t)        # GEMM: (N, Q*m)@(Q*m, i*E)
     return ye.reshape(N * dim, E)
 
 

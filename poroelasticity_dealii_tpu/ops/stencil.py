@@ -10,8 +10,8 @@ operator is translation-invariant and factorizes into exactly two convs:
 2. **one-hot scatter conv** — transposed placement of local contributions
    back onto the node grid: ``lhs_dilation = k`` with a one-hot kernel.
 
-This is the whole matrix-free apply: ~2·Ndof² FLOPs of dense conv work that
-the MXU eats at near-peak, a few ops of HLO (seconds to compile instead of
+This is the whole matrix-free apply: ~2·Ndof² FLOPs of dense conv work, a
+few ops of HLO (seconds to compile instead of
 minutes for slice/pad chains), and zero gather/scatter instructions.  The
 element matrices are computed once on the host from the same definitions the
 dense test oracle uses (ops/dense.py), so the conv path is verified against
@@ -115,7 +115,7 @@ def make_stencil_apply(element_matrix: np.ndarray, k_in: int, k_out: int,
     polynomial degrees of the input/output spaces.  ``n_cells``: int or
     per-axis counts in (x, y[, z]) order (anisotropic grids).
 
-    ``precision``: MXU conv precision.  HIGHEST = full f32 (the solver
+    ``precision``: conv precision.  HIGHEST = full f32 (the solver
     operator); lower settings are legitimate for *preconditioner* applies
     (smoothers), which only need to be a fixed linear operator.
     """
@@ -123,11 +123,9 @@ def make_stencil_apply(element_matrix: np.ndarray, k_in: int, k_out: int,
     if k_in == k_out == 1 and n_comp_in == n_comp_out == 1:
         return _make_q1_slices_apply(element_matrix, dim, ns, dtype)
     if dim == 2:
-        # 2D: the tiny-channel convs run at a few percent of attainable on
-        # TPU (measured 8.35 ms per 2.1M-DOF Q2 elasticity apply at 512^2
-        # — ~7 us of data movement); the parity-matmul formulation below
-        # is the same algorithm as the 3D Pallas row kernel (one
-        # N_in-contraction MXU pass per apply) in pure XLA
+        # 2D: tiny-channel convs stream far below memory bandwidth; the
+        # parity-matmul formulation below is the same algorithm as the 3D
+        # row layout (one N_in-contraction matmul per apply)
         return _make_parity_matmul_apply(element_matrix, k_in, k_out,
                                          n_comp_in, n_comp_out, dim, ns,
                                          dtype, precision)
@@ -151,12 +149,11 @@ def make_stencil_apply(element_matrix: np.ndarray, k_in: int, k_out: int,
 def _make_q1_slices_apply(element_matrix: np.ndarray, dim: int, ns, dtype):
     """Scalar Q1 -> Q1 operator as shifted-slice multiply-adds.
 
-    The tiny-channel convs of the generic path run at a few percent of
-    attainable on TPU (measured 5 ms at 41^3 vs ~25 us of data movement);
-    for the Q1 case the cell loop collapses to 2^dim full-grid shifted
-    slices, 4^dim scalar fused multiply-adds, and 2^dim shifted
-    accumulations — plain VPU streaming, measured 7.4x faster at 41^3 on
-    v5e.  Semantics identical to the two-conv form (cells enumerate slices,
+    The tiny-channel convs of the generic path stream far below memory
+    bandwidth; for the Q1 case the cell loop collapses to 2^dim full-grid
+    shifted slices, 4^dim scalar fused multiply-adds, and 2^dim shifted
+    accumulations — plain elementwise streaming that XLA fuses into one
+    loop.  Semantics identical to the two-conv form (cells enumerate slices,
     so boundary weights are exact); carries the pressure mass/Laplace/
     fused-Jacobian applies and the pressure GMG level operators."""
     K = np.asarray(element_matrix, np.float64)
@@ -172,7 +169,7 @@ def _make_q1_slices_apply(element_matrix: np.ndarray, dim: int, ns, dtype):
 
     def pad_width(off):
         # scatter via pad + add: XLA fuses the 2^dim pads into ONE output
-        # loop, vs ~70 us per dynamic-update-slice for .at[].add windows
+        # loop, vs one dynamic-update-slice per .at[].add window
         return tuple((off[dim - 1 - a], 1 - off[dim - 1 - a])
                      for a in range(dim))
 
@@ -194,9 +191,9 @@ def _make_parity_matmul_apply(element_matrix: np.ndarray, k_in: int,
                               dtype, precision=lax.Precision.HIGHEST):
     """Operator apply as ONE N_in-contraction matmul over all cells.
 
-    The same algorithm as the 3D Pallas row kernel (ops/pallas_comp_major,
-    "one 81-contraction MXU pass") in pure XLA, for the spaces/dims the
-    Pallas kernel does not cover (2D, mixed-degree coupling/projection):
+    The same algorithm as the 3D row layout (ops/rows3d, "one
+    81-contraction matmul"), for the spaces/dims it does not cover (2D,
+    mixed-degree coupling/projection):
 
     1. de-interleave the node grid into degree-parity subgrids with ONE
        pad+reshape per axis (node i = k*cell + o; class o=0 length n+1,
@@ -204,7 +201,7 @@ def _make_parity_matmul_apply(element_matrix: np.ndarray, k_in: int,
        CONTIGUOUS slice, no strided slicing, no tiny-channel convs;
     2. assemble the per-cell operand U (N_in, cells...) from those slices
        and issue one (N_out, N_in) x (N_in, E) einsum — the entire FLOP
-       volume of the apply in a single MXU pass;
+       volume of the apply in a single matmul;
     3. scatter back by accumulating per parity class (pad+add, as the Q1
        slices path) and re-interleaving with one stack+reshape per axis.
 

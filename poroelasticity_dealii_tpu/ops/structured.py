@@ -4,8 +4,8 @@ With grid-lexicographic node numbering (mesh/structured.py), the per-cell
 local view of a field is, for each of the (k+1)^dim local lattice offsets, a
 stride-k slice of the node grid — and the transpose (assembly scatter) is a
 ``lax.pad`` with interior padding k-1 followed by adds.  Both are dense,
-fully-vectorized data movements; the XLA TPU gather/scatter ops (measured
-~7.5 ns *per element* — they serialize) never appear.
+fully-vectorized data movements; XLA gather/scatter ops (which serialize
+on accumulation conflicts) never appear.
 
 On a uniform grid the Jacobian is also constant, so geometry factors enter
 as cells-broadcast ``(Q, dim, dim, 1)`` arrays: an operator apply then

@@ -21,7 +21,7 @@ O(interface):
   (elementwise solver algebra needs no communication; dot products lower
   to scalar ``all-reduce``s).
 
-The reference is fully serial (SURVEY §2), so this is the TPU-native
+The reference is fully serial (SURVEY §2), so this is the data-parallel
 analogue of MPI-parallel FEM with ghosted ``PETScWrappers::MPI::Vector``s,
 not a port.  tests/test_ghost_sharding.py asserts the compiled HLO moves
 halo-scaled (O(n²)), not volume-scaled (O(n³)), bytes per apply.

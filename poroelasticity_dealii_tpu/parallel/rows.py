@@ -1,23 +1,20 @@
 """Multi-chip form of the PRODUCTION solver configuration.
 
-Round-2 gap (VERDICT): the flagship single-chip path — Pallas row-layout
-mechanics CG + slice-stencil/fused-Jacobian pressure — could not shard;
-every multi-chip path ran slower operator backends.  This module closes it
-with a **z-slab domain decomposition of the comp-major row layout**
-(`ops/pallas_comp_major.py`):
+The single-chip production path — row-layout mechanics CG
+(`ops/rows3d.py`) + slice-stencil/fused-Jacobian pressure — shards here
+with a **z-slab domain decomposition of the comp-major row layout**:
 
 * the row layout is z-half-major, so a z-slab of the displacement grid IS
   a contiguous row range — each device owns ``Lz = ceil((n+1)/n_dev)``
   z-half layers (``Lz*24`` rows) of every row-layout vector, and the whole
   mechanics CG (dots/axpys/masks) runs on those sharded arrays unchanged;
 * one elasticity apply needs exactly ONE 24-row halo band from the z+
-  neighbour (the same z-half-layer overlap the kernel already manages
-  across its sequential grid steps as the ``carry`` scratch) and returns
+  neighbour (cell layer ``Lz-1`` reaches z-half layer ``Lz``) and returns
   ONE 24-row contribution band — two ``ppermute``s per apply, each moving
   ``24*W`` values, independent of the slab depth (interface-scaled);
-* inside ``jax.shard_map`` each device runs the unmodified Pallas kernel
-  on its local slab (``make_pallas_apply_rows(nz=Lz)``), with the count of
-  real cell layers passed at runtime (``lax.axis_index``-derived — tail
+* inside ``jax.shard_map`` each device runs the single-chip row apply on
+  its local slab (``make_apply_rows(nz=Lz)``), with the count of real
+  cell layers passed at runtime (``lax.axis_index``-derived — tail
   devices own padding layers);
 * the pressure side reuses the conv/slice-stencil operators under a GSPMD
   slab sharding constraint (XLA inserts the conv halo exchanges), exactly
@@ -26,7 +23,7 @@ with a **z-slab domain decomposition of the comp-major row layout**
 
 The reference is fully serial (SURVEY §2 parallelism paragraph); this is
 the BASELINE.json configs[4] obligation ("elements sharded over GSPMD
-mesh, ICI halo exchange") applied to the production backend.
+mesh, halo exchange") applied to the production backend.
 
 Shape contract: sharded row-layout vectors are padded from ``(n+1)*24``
 to ``n_dev*Lz*24`` rows.  Padding rows carry ``free_mask = 0`` and
@@ -48,10 +45,9 @@ from jax import lax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from .sharding import CELL_AXIS
-from ..ops.pallas_comp_major import (ElasticityRowOps, default_tc, from_rows,
-                                     make_coupling_rows,
-                                     make_pallas_apply_rows,
-                                     make_projection_rows, to_rows, _width)
+from ..ops.rows3d import (ElasticityRowOps, from_rows, lazy_block_precond,
+                          make_apply_rows, make_coupling_rows,
+                          make_projection_rows, to_rows)
 
 
 def slab_layers(n: int, n_dev: int) -> int:
@@ -61,7 +57,6 @@ def slab_layers(n: int, n_dev: int) -> int:
 
 def make_row_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,
                          diag_elasticity, device_mesh, dtype=jnp.float32,
-                         tc: int = None, interpret: bool = False,
                          coupling_matrix: np.ndarray = None,
                          projection_matrix: np.ndarray = None
                          ) -> ElasticityRowOps:
@@ -74,11 +69,7 @@ def make_row_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,
     Lz = slab_layers(n, n_dev)
     n_rows = n_dev * Lz * 24
     pad = n_rows - (n + 1) * 24
-    W = _width(n)
-    if tc is None:
-        tc = min(default_tc(n, dtype), Lz)
-    kernel = make_pallas_apply_rows(element_matrix, n, dtype, tc=tc,
-                                    interpret=interpret, nz=Lz)
+    slab_apply = make_apply_rows(element_matrix, n, dtype, nz=Lz)
     spec = NamedSharding(device_mesh, P(CELL_AXIS, None))
 
     def shard(R):
@@ -100,19 +91,16 @@ def make_row_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,
         # its layers past n are masked by nv)
         fwd = [(d + 1, d) for d in range(n_dev - 1)]
         halo = lax.ppermute(x_loc[:24], CELL_AXIS, fwd)
-        y = kernel(jnp.concatenate([x_loc, halo], axis=0), nv)
+        y = slab_apply(jnp.concatenate([x_loc, halo], axis=0), nv)
         # halo return: my contribution to the neighbour's first z-half
         # layer goes forward; device 0 receives zeros
         bwd = [(d, d + 1) for d in range(n_dev - 1)]
         ret = lax.ppermute(y[Lz * 24:], CELL_AXIS, bwd)
         return y[:Lz * 24].at[:24].add(ret)
 
-    # check_vma=False: the pallas_call inside can't annotate its output's
-    # varying-across-mesh axes (jax.ShapeDtypeStruct has no vma here)
     smapped = jax.shard_map(_local_apply, mesh=device_mesh,
                             in_specs=P(CELL_AXIS, None),
-                            out_specs=P(CELL_AXIS, None),
-                            check_vma=False)
+                            out_specs=P(CELL_AXIS, None))
     apply_rows = jax.jit(lambda R: smapped(shard(R)))
 
     ones = jnp.ones_like(jnp.asarray(diag_elasticity, dtype))
@@ -134,7 +122,6 @@ def make_row_ops_sharded(element_matrix: np.ndarray, n: int, free_mask_u,
     # apply is elementwise per (z-half, parity, lane) so it shards with
     # the row axis (the M planes ride as a replicated->resharded const).
     # Lazy: only 'Mechanics preconditioner = block' decks build it.
-    from ..ops.pallas_comp_major import lazy_block_precond
     bp = lazy_block_precond(element_matrix, n, free_mask_u, dtype,
                             nz_pad=n_dev * Lz)
 
@@ -250,7 +237,7 @@ def shard_production_discretization(disc, device_mesh):
     """Shard the production ConvGridDiscretization: GSPMD slab constraints
     on the conv/slice stencils (delegated to
     :func:`.sharding.shard_grid_discretization`) PLUS shard_map row ops
-    for the production mechanics path — z-slab Pallas rows in 3D,
+    for the production mechanics path — z-slab rows in 3D,
     y-slab parity in 2D.
 
     Requires the row-ops-eligible configuration (equal-axis Q2 grid with
@@ -261,7 +248,7 @@ def shard_production_discretization(disc, device_mesh):
     if getattr(disc, "row_ops", None) is None:   # generic discs lack the attr
         raise ValueError(
             "production sharding needs row_ops (equal-axis Q2 grid with "
-            "elasticity_backend='pallas'/'parity' or auto at size)")
+            "elasticity_backend='rows'/'parity' or auto at size)")
     base = shard_grid_discretization(disc, device_mesh)  # stencils + hook
     n = disc.info_u.cells_per_axis[0]
     if len(disc.info_u.cells_per_axis) == 2:
@@ -295,10 +282,9 @@ def shard_production_discretization(disc, device_mesh):
                 return lax.with_sharding_constraint(z, _spec)
             new.gmg_precond_rows = gmg_rows_sharded
         return new
-    interpret = jax.default_backend() != "tpu"
     row_ops = make_row_ops_sharded(
         disc.element_ke, n, disc.free_mask_u, disc.diag_elasticity,
-        device_mesh, dtype=disc.dtype, interpret=interpret,
+        device_mesh, dtype=disc.dtype,
         coupling_matrix=disc.element_ce,
         projection_matrix=disc.element_pe)
     return dataclasses.replace(base, row_ops=row_ops)

@@ -2,7 +2,7 @@
 
 The reference is fully serial (SURVEY §2: no MPI/threads anywhere), so this
 subsystem is a design obligation from BASELINE.json, not a port: the
-TPU-native analogue of MPI-parallel FEM with ghosted vectors is
+data-parallel analogue of MPI-parallel FEM with ghosted vectors is
 
 * element arrays (connectivity, Jacobian factors) sharded over a 1D device
   mesh axis ``"cells"`` — the domain decomposition;
@@ -166,7 +166,7 @@ def shard_grid_discretization(disc, device_mesh: DeviceMesh):
         # Jacobian — the pressure CG's hot operator) get the same slab
         # constraint through this hook
         wrap_pressure_stencil=lambda st: wrap(st, gp, 1),
-        # the plain Pallas row-layout kernel is single-chip; this mode
+        # the single-device row layout does not shard by GSPMD; this mode
         # uses the GSPMD-partitioned conv stencils (parallel/rows.py
         # re-adds z-slab-sharded row ops on top of this function)
         row_ops=None,

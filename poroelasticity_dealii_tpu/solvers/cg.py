@@ -3,7 +3,7 @@
 Replaces the reference's deal.II ``SolverCG`` + ``PreconditionSSOR`` calls
 (``PoroElasticPressureSolver.h:172-185``,
 ``PoroElasticDisplacementSolver.h:294-307``, ``StrainProjector.h:201-232``).
-SSOR is a sequential triangular sweep and therefore not TPU-idiomatic; we use
+SSOR is a sequential triangular sweep and therefore does not vectorize; we use
 Jacobi (diagonal) preconditioning, which vectorizes perfectly — the
 equivalence target is identical solutions at the same tolerances with
 iteration counts of the same order (SURVEY §7 hard-part 3).
@@ -29,9 +29,9 @@ def _dot(a, b, precise=False):
 
     CG's alpha = rz / pAp suffers catastrophic cancellation in f32 when the
     preconditioner is good (z ~ A^{-1}r makes the true p·Ap tiny relative
-    to sum(|p_i (Ap)_i|)); observed on TPU as a *negative* p·Ap and a
-    completely stalled solve.  When x64 is enabled (emulated f64 on TPU is
-    fine for a bandwidth-bound dot), accumulate in float64; otherwise keep
+    to sum(|p_i (Ap)_i|)); observed as a *negative* p·Ap and a completely
+    stalled solve.  When x64 is enabled (f64 is fine for a
+    bandwidth-bound dot), accumulate in float64; otherwise keep
     the plain dot (enable x64 for f32 production runs — bench.py does).
 
     Reduction form (``sum(a*b)``), NOT ``jnp.vdot``: vdot flattens via
@@ -80,10 +80,8 @@ def cg_solve(apply_a: Callable, b: jnp.ndarray, x0: jnp.ndarray,
       precond: optional SPD fixed linear operator ``r -> M^{-1} r``
         (e.g. a multigrid V-cycle); overrides ``diag``.
       precise_dots: accumulate the CG scalars in float64 (requires x64
-        enabled; f64 is emulated but cheap on TPU for bandwidth-bound dots).
-        Needed when a very strong preconditioner drives the true p·Ap into
-        f32 cancellation territory; off by default since the emulated dots
-        cost ~3 ms each at 1.66M dofs.
+        enabled).  Needed when a very strong preconditioner drives the true
+        p·Ap into f32 cancellation territory; off by default.
       apply_iter: optional cheaper operator used for the PER-ITERATION
         applies (on search directions p only).  Caller must guarantee it
         equals ``apply_a`` on the Krylov subspace actually visited —
@@ -157,7 +155,7 @@ def richardson_solve(apply_a: Callable, b: jnp.ndarray, x0: jnp.ndarray,
     preconditioners in float32: when M approximates A^{-1} well, the true
     quadratic form p·Ap falls below the forward-error noise of the f32
     operator apply itself, and CG's step computation becomes noise-dominated
-    (observed on TPU: bit-exact stagnation of GMG-CG at 40^3 elasticity
+    (observed: bit-exact stagnation of f32 GMG-CG at 40^3 elasticity
     while this iteration contracts steadily at ~0.5/step).  No dot products
     enter the update — only the stopping test.
 

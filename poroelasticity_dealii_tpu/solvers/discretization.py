@@ -36,7 +36,7 @@ class Discretization:
     # spaces (host-side, for output/inspection)
     pressure_space: FESpace
     displacement_space: FESpace
-    # connectivity — cells-LAST layout (cell index in the TPU lane dim; see
+    # connectivity — cells-LAST layout (cell index is the minor dim; see
     # ops/operators.py module docstring for why this is load-bearing)
     conn_p: jnp.ndarray        # (Np, E)
     conn_u: jnp.ndarray        # (Nu*dim, E), interleaved comps

@@ -44,6 +44,11 @@ class RunLogger:
                 "projection": int(stats.projection_cg_iterations),
             },
             "fss_error_history": [float(x) for x in hist[hist >= 0]],
+            # False if any linear solve of the step ended before its
+            # tolerance; cg_stalled then says whether it stagnated (f32
+            # floor) rather than hitting its iteration cap
+            "cg_converged": bool(getattr(stats, "cg_converged", True)),
+            "cg_stalled": bool(getattr(stats, "cg_stalled", False)),
         }
         if extra:
             rec.update(extra)

@@ -108,8 +108,9 @@ def test_deck_sharding_knob(tmp_path):
 
 def test_deck_sharding_production_knob(tmp_path):
     """'TPU / Sharding = production' from the deck alone: the z-slab
-    sharded Pallas row backend + GSPMD stencil pressure runs end-to-end
-    through the CLI runner (3D pallas-eligible deck, 2 steps)."""
+    sharded row backend + GSPMD stencil pressure runs end-to-end through
+    the CLI runner (3D rows-eligible deck selected by the older deck name
+    'pallas', 2 steps)."""
     import numpy as np
     from poroelasticity_dealii_tpu.models.runner import run_from_deck
     deck = open("configs/consolidation_3d.data").read() + (

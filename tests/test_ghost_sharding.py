@@ -1,7 +1,7 @@
 """Interface-scaled (ghost-exchange) domain decomposition tests.
 
-VERDICT r1 item 7: the psum element-shard path moves O(n_dofs) bytes per
-operator apply; the ghost path must move O(interface).  Three tiers:
+The psum element-shard path moves O(n_dofs) bytes per operator apply;
+the ghost path must move O(interface).  Three tiers:
 
 * operator-apply and full-FSS-step equality, 1 vs 8 shards;
 * an HLO audit proving the CG loop body's collectives are halo-sized

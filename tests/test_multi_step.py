@@ -3,7 +3,7 @@ scanned inside ONE jitted call must be semantically identical to K
 sequential time_step calls — same states, same convergence trajectory.
 
 The reference's time loop is a serial C++ while (PoroelasticityFSS.h:
-327-413); multi_step is its compiler-visible TPU-idiomatic form, used by
+327-413); multi_step is its compiler-visible form, used by
 the runner's 'TPU / Steps per dispatch' knob and the bench throughput
 pass.
 """

@@ -1,5 +1,12 @@
-"""Pallas fused elasticity kernel vs the conv-stencil path (interpret mode
-on CPU; the same kernel runs compiled on TPU — see bench notes)."""
+"""3D comp-major row layout (ops/rows3d.py) vs the conv-stencil path and
+independent numpy/loop oracles.
+
+Several cases also run the z-slab form of the row apply (``nz`` cell
+layers per slab, runtime count of real layers ``nv``) that the sharded
+production path composes across devices (parallel/rows.py); here the
+slabs are summed on one device, so the slab bookkeeping is checked
+without collectives.
+"""
 
 import numpy as np
 import pytest
@@ -8,37 +15,13 @@ import jax
 import jax.numpy as jnp
 
 from poroelasticity_dealii_tpu.config import read_input_file
-from poroelasticity_dealii_tpu.ops.pallas_elasticity import (
-    elasticity_element_matrix, make_pallas_elasticity, merge_parities,
-    split_parities)
+from poroelasticity_dealii_tpu.ops import rows3d
+from poroelasticity_dealii_tpu.ops.rows3d import from_rows, to_rows
+from poroelasticity_dealii_tpu.ops.shape import node_lattice
 from poroelasticity_dealii_tpu.solvers.structured import \
     build_grid_discretization
 
 DECK = "configs/consolidation_3d.data"
-
-
-def test_parity_split_roundtrip():
-    n = 3
-    g = 2 * n + 1
-    rng = np.random.default_rng(0)
-    U = jnp.asarray(rng.standard_normal((g, g, g, 3)))
-    np.testing.assert_allclose(merge_parities(split_parities(U, n), n), U)
-
-
-@pytest.mark.parametrize("n,tz", [(4, 2), (6, 3)])
-def test_pallas_elasticity_matches_conv(n, tz):
-    data = read_input_file(DECK)
-    disc = build_grid_discretization(data, cells_per_axis=n,
-                                     multigrid="off")
-    rng = np.random.default_rng(1)
-    u = jnp.asarray(rng.standard_normal(disc.n_udofs), dtype=disc.dtype)
-    ke = elasticity_element_matrix(data, n)
-    apply_p = make_pallas_elasticity(ke, n, tz=tz, dtype=disc.dtype,
-                                     interpret=True)
-    y = np.asarray(apply_p(u))
-    y_ref = np.asarray(disc.elasticity(u))
-    scale = np.abs(y_ref).max()
-    np.testing.assert_allclose(y, y_ref, atol=1e-11 * scale)
 
 
 # ------------------------------------------------- comp-major kernel -----
@@ -57,9 +40,31 @@ def _cm_setup(n):
     return Ke, disc
 
 
+def _slab_sum_apply(Ke, n, nz, R, dtype):
+    """The z-slab decomposition of the row apply on ONE device: slab k
+    owns cell layers [k*nz, (k+1)*nz), reads its nz+1 z-half layers
+    (zero-padded past the grid), masks layers past the real count, and
+    its nz+1 output layers are summed back — parallel/rows.py's dataflow
+    with the halo ppermutes replaced by slicing."""
+    slab = rows3d.make_apply_rows(Ke, n, dtype, nz=nz)
+    n_slabs = -(-n // nz)
+    rows = (n_slabs * nz + 1) * 24
+    Rp = jnp.pad(R, ((0, rows - R.shape[0]), (0, 0)))
+    out = jnp.zeros_like(Rp)
+    for k in range(n_slabs):
+        lo = k * nz * 24
+        nv = jnp.int32(min(nz, n - k * nz))
+        y = slab(Rp[lo:lo + (nz + 1) * 24], nv)
+        out = out.at[lo:lo + (nz + 1) * 24].add(y)
+    return out[:R.shape[0]]
+
+
+def _row_ops(Ke, disc, n, dtype):
+    return rows3d.make_row_ops(Ke, n, np.asarray(disc.free_mask_u),
+                               np.asarray(disc.diag_elasticity), dtype)
+
+
 def test_comp_major_rows_roundtrip():
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (from_rows,
-                                                                 to_rows)
     n = 3
     rng = np.random.default_rng(0)
     u = jnp.asarray(rng.standard_normal((2 * n + 1) ** 3 * 3))
@@ -68,56 +73,57 @@ def test_comp_major_rows_roundtrip():
 
 
 def test_comp_major_reference_matches_conv():
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import \
-        make_reference_apply
     n = 4
     Ke, disc = _cm_setup(n)
     rng = np.random.default_rng(0)
     u = jnp.asarray(rng.standard_normal(disc.n_udofs), jnp.float64)
-    y_ref = np.asarray(make_reference_apply(Ke, n, jnp.float64)(u))
+    y_ref = np.asarray(rows3d.make_reference_apply(Ke, n, jnp.float64)(u))
     y_conv = np.asarray(disc.elasticity(jnp.asarray(u, disc.dtype)))
     np.testing.assert_allclose(y_ref, y_conv,
                                atol=1e-12 * np.abs(y_conv).max())
 
 
-@pytest.mark.parametrize("n,tc", [(4, 2), (6, 4)])  # incl. tail block
-def test_comp_major_pallas_interpret_matches_conv(n, tc):
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import \
-        make_pallas_apply
+@pytest.mark.parametrize("n,nz", [(4, 2), (6, 4)])  # incl. tail slab
+def test_comp_major_pallas_interpret_matches_conv(n, nz):
+    """f64: the vectorized row apply and its z-slab form (depth nz) both
+    reproduce the conv stencil to rounding."""
     Ke, disc = _cm_setup(n)
     rng = np.random.default_rng(0)
-    u = jnp.asarray(rng.standard_normal(disc.n_udofs), jnp.float32)
-    y = np.asarray(make_pallas_apply(Ke, n, jnp.float32, tc=tc,
-                                     interpret=True)(u))
-    y_conv = np.asarray(disc.elasticity(jnp.asarray(u, disc.dtype)))
-    err = np.abs(y - y_conv).max() / np.abs(y_conv).max()
-    assert err < 1e-5, err
-
-
-# v2 kernel: carry-based overlap, double-buffered DMA, rows->rows interface
-@pytest.mark.parametrize("n,tc", [(4, 2), (6, 4), (5, 2), (4, 4)])
-def test_comp_major_v2_rows_matches_conv(n, tc):
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (
-        from_rows, make_pallas_apply_rows, to_rows)
-    Ke, disc = _cm_setup(n)
-    rng = np.random.default_rng(0)
-    u = jnp.asarray(rng.standard_normal(disc.n_udofs), jnp.float32)
-    ar = make_pallas_apply_rows(Ke, n, jnp.float32, tc=tc, interpret=True)
+    u = jnp.asarray(rng.standard_normal(disc.n_udofs), jnp.float64)
+    y_conv = np.asarray(disc.elasticity(u))
     R = to_rows(u, n)
-    Y = ar(R)
+    full = rows3d.make_apply_rows(Ke, n, jnp.float64)(R)
+    slabs = _slab_sum_apply(Ke, n, nz, R, jnp.float64)
+    scale = np.abs(y_conv).max()
+    for Y in (full, slabs):
+        np.testing.assert_allclose(np.asarray(from_rows(Y, n)), y_conv,
+                                   atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("n,nz", [(4, 2), (6, 4), (5, 2), (4, 4)])
+def test_comp_major_v2_rows_matches_conv(n, nz):
+    """f32 rows -> rows apply == conv, the padding invariant holds (zero
+    in -> zero out, required for persistent-row CG), and the z-slab form
+    of depth nz agrees."""
+    Ke, disc = _cm_setup(n)
+    rng = np.random.default_rng(0)
+    u = jnp.asarray(rng.standard_normal(disc.n_udofs), jnp.float32)
+    R = to_rows(u, n)
+    Y = jax.jit(rows3d.make_apply_rows(Ke, n, jnp.float32))(R)
     y = np.asarray(from_rows(Y, n))
     y_conv = np.asarray(disc.elasticity(jnp.asarray(u, disc.dtype)))
     err = np.abs(y - y_conv).max() / np.abs(y_conv).max()
     assert err < 1e-5, err
-    # padding invariant: zero in -> zero out (required for persistent-row CG)
-    W = R.shape[1]
     real = (n + 1) * (n + 1)
     assert np.abs(np.asarray(Y[:, real:])).max() == 0.0
+    Ys = _slab_sum_apply(Ke, n, nz, R, jnp.float32)
+    err = np.abs(np.asarray(Ys - Y)).max() / np.abs(np.asarray(Y)).max()
+    assert err < 1e-6, err
 
 
 def test_row_ops_solver_path_matches_conv():
-    """Full FSS step with the Pallas row-layout mechanics CG (interpret on
-    CPU) == the conv-stencil path."""
+    """Full FSS step with the row-layout mechanics CG == the conv-stencil
+    path ('pallas' is the older deck name of the rows backend)."""
     import dataclasses
 
     from poroelasticity_dealii_tpu.solvers import FixedStressSolver
@@ -163,12 +169,12 @@ def test_coupling_rows_matches_flat_coupling():
     direct-in-rows mechanics RHS path (f64, several grid sizes)."""
     import dataclasses
 
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import to_rows
+    from poroelasticity_dealii_tpu.ops.rows3d import to_rows
     data = read_input_file(DECK)
     for n in (2, 3, 5):
         disc = build_grid_discretization(data, cells_per_axis=n,
                                          multigrid="off",
-                                         elasticity_backend="pallas")
+                                         elasticity_backend="rows")
         ro = disc.row_ops
         assert ro.coupling_rows is not None
         rng = np.random.default_rng(n)
@@ -184,12 +190,12 @@ def test_projection_rows_matches_flat_projection():
     """make_projection_rows assembles exactly strain_projection_rhs(u) from
     the row layout — the rows-resident strain-projection path (f64,
     several grid sizes)."""
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import to_rows
+    from poroelasticity_dealii_tpu.ops.rows3d import to_rows
     data = read_input_file(DECK)
     for n in (2, 3, 5):
         disc = build_grid_discretization(data, cells_per_axis=n,
                                          multigrid="off",
-                                         elasticity_backend="pallas")
+                                         elasticity_backend="rows")
         ro = disc.row_ops
         assert ro.projection_rows is not None
         rng = np.random.default_rng(n)
@@ -201,75 +207,67 @@ def test_projection_rows_matches_flat_projection():
                                    atol=1e-12 * float(jnp.abs(ref).max()))
 
 
-@pytest.mark.parametrize("n,tc", [(4, 2), (5, 2), (4, 4), (6, 3)])
-def test_fused_constrained_apply_matches_composed(n, tc):
-    """v3 fused kernel (mask DMA + in-VMEM finalize) == the composed
-    m*A(mx)+(1-m)x form, including boundary-constrained rows, phantom
-    lanes and the tail/flush tiles (interpret mode)."""
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (
-        make_pallas_apply_rows, make_pallas_constrained_apply, to_rows)
+@pytest.mark.parametrize("n,nz", [(4, 2), (5, 2), (4, 4), (6, 3)])
+def test_fused_constrained_apply_matches_composed(n, nz):
+    """ElasticityRowOps.constrained_apply == the flat constrained operator
+    ``m*A(mx)+(1-m)x`` of the conv discretization, including
+    boundary-constrained rows and phantom lanes; the z-slab apply of
+    depth nz composes to the same constrained apply."""
     Ke, disc = _cm_setup(n)
+    ro = _row_ops(Ke, disc, n, jnp.float64)
     rng = np.random.default_rng(0)
-    u = jnp.asarray(rng.standard_normal(disc.n_udofs), jnp.float32)
+    u = jnp.asarray(rng.standard_normal(disc.n_udofs), jnp.float64)
     R = to_rows(u, n)
-    m = to_rows(jnp.asarray(disc.free_mask_u, jnp.float32), n)
-    ar = make_pallas_apply_rows(Ke, n, jnp.float32, tc=tc, interpret=True)
-    ref = ar(R * m) * m + R * (1.0 - m)
-    fused = make_pallas_constrained_apply(Ke, n, m, jnp.float32, tc=tc,
-                                          interpret=True)
-    got = fused(R)
-    err = np.abs(np.asarray(got - ref)).max() / np.abs(np.asarray(ref)).max()
-    assert err < 1e-6, err
+    ref = np.asarray(disc.elasticity_constrained(u))
+    got = np.asarray(from_rows(ro.constrained_apply(R), n))
+    np.testing.assert_allclose(got, ref, atol=1e-12 * np.abs(ref).max())
+    m = ro.free_mask_rows
+    slab = _slab_sum_apply(Ke, n, nz, R * m, jnp.float64) * m \
+        + R * (1.0 - m)
+    np.testing.assert_allclose(np.asarray(from_rows(slab, n)), ref,
+                               atol=1e-12 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("n,tc", [(4, 2), (5, 2), (6, 3)])
-def test_free_apply_matches_constrained_on_free_subspace(n, tc):
-    """v4 free-subspace kernel (no input mask) == the v3 constrained
-    apply on vectors that are zero at constrained rows/padding — the
-    invariant cg_solve's per-iteration directions satisfy (interpret
-    mode)."""
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (
-        make_pallas_constrained_apply, make_pallas_free_apply, to_rows)
+@pytest.mark.parametrize("n,nz", [(4, 2), (5, 2), (6, 3)])
+def test_free_apply_matches_constrained_on_free_subspace(n, nz):
+    """free_apply (no input mask) == constrained_apply on vectors that are
+    zero at constrained rows/padding — the invariant cg_solve's
+    per-iteration directions satisfy — for the single-chip apply and the
+    z-slab form of depth nz."""
     Ke, disc = _cm_setup(n)
+    ro = _row_ops(Ke, disc, n, jnp.float32)
     rng = np.random.default_rng(1)
     u = jnp.asarray(rng.standard_normal(disc.n_udofs), jnp.float32)
-    m = to_rows(jnp.asarray(disc.free_mask_u, jnp.float32), n)
+    m = ro.free_mask_rows
     p = to_rows(u, n) * m                       # free-subspace vector
-    fused = make_pallas_constrained_apply(Ke, n, m, jnp.float32, tc=tc,
-                                          interpret=True)
-    free = make_pallas_free_apply(Ke, n, m, jnp.float32, tc=tc,
-                                  interpret=True)
-    got, ref = np.asarray(free(p)), np.asarray(fused(p))
+    got = np.asarray(jax.jit(ro.free_apply)(p))
+    ref = np.asarray(jax.jit(ro.constrained_apply)(p))
     assert np.array_equal(got, ref), np.abs(got - ref).max()
+    slab_free = np.asarray(_slab_sum_apply(Ke, n, nz, p, jnp.float32) * m)
+    err = np.abs(slab_free - ref).max() / np.abs(ref).max()
+    assert err < 1e-6, err
 
 
 def test_cg_apply_iter_invariant():
     """cg_solve(apply_iter=free_apply) returns the identical solve as the
     plain constrained-apply CG when b/x0 carry the Dirichlet values (the
     free-subspace invariant holds for every direction vector)."""
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (
-        make_pallas_constrained_apply, make_pallas_free_apply, to_rows)
     from poroelasticity_dealii_tpu.solvers.cg import cg_solve
     n = 4
     Ke, disc = _cm_setup(n)
+    ro = _row_ops(Ke, disc, n, jnp.float32)
     rng = np.random.default_rng(2)
-    m = to_rows(jnp.asarray(disc.free_mask_u, jnp.float32), n)
-    ones = to_rows(jnp.ones(disc.n_udofs, jnp.float32), n)
-    diag = to_rows(jnp.asarray(disc.diag_elasticity, jnp.float32), n) \
-        + (1.0 - ones)
+    m = ro.free_mask_rows
     g = to_rows(jnp.asarray(
         rng.standard_normal(disc.n_udofs), jnp.float32), n)
     b = m * to_rows(jnp.asarray(
         rng.standard_normal(disc.n_udofs), jnp.float32), n) + (1.0 - m) * g
     x0 = (1.0 - m) * g
-    fused = make_pallas_constrained_apply(Ke, n, m, jnp.float32, tc=2,
-                                          interpret=True)
-    free = make_pallas_free_apply(Ke, n, m, jnp.float32, tc=2,
-                                  interpret=True)
     tol = 1e-5 * float(jnp.linalg.norm(b))
-    ref = cg_solve(fused, b, x0, diag, tol=tol, max_iter=200)
-    got = cg_solve(fused, b, x0, diag, tol=tol, max_iter=200,
-                   apply_iter=free)
+    ref = cg_solve(ro.constrained_apply, b, x0, ro.diag_rows, tol=tol,
+                   max_iter=200)
+    got = cg_solve(ro.constrained_apply, b, x0, ro.diag_rows, tol=tol,
+                   max_iter=200, apply_iter=ro.free_apply)
     assert bool(ref.converged) and bool(got.converged)
     assert int(ref.iterations) == int(got.iterations)
     assert np.array_equal(np.asarray(ref.x), np.asarray(got.x))
@@ -291,7 +289,7 @@ def test_deferred_u_rows_residency():
         pressure_cg_tol=1e-5, projection_cg_tol=1e-5)
     disc = build_grid_discretization(data, cells_per_axis=4,
                                      multigrid="off",
-                                     elasticity_backend="pallas")
+                                     elasticity_backend="rows")
     solver = FixedStressSolver(disc, data)
     s0 = solver.initial_state()
     dt = data.time_step
@@ -325,7 +323,7 @@ def test_deferred_u_rows_residency():
 def test_elasticity_node_blocks_diag_matches_diagonal():
     """The (c, c) entries of the per-node 3x3 blocks must reproduce the
     assembled (Dirichlet-masked) operator diagonal exactly."""
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import \
+    from poroelasticity_dealii_tpu.ops.rows3d import \
         elasticity_node_blocks
     n = 4
     Ke, disc = _cm_setup(n)
@@ -339,7 +337,7 @@ def test_block_precond_matches_dense_blocks():
     """rows-layout block apply == per-node 3x3 matvec on the flat layout,
     and zeros at constrained/padding positions stay zero (the
     free-subspace invariant the v4 apply_iter relies on)."""
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (
+    from poroelasticity_dealii_tpu.ops.rows3d import (
         elasticity_node_blocks, from_rows, make_block_precond, to_rows)
     n = 3
     Ke, disc = _cm_setup(n)
@@ -377,7 +375,7 @@ def test_mech_solve_block_precond_matches_jacobi():
         d = dataclasses.replace(data, mech_precond=pc)
         disc = build_grid_discretization(d, cells_per_axis=n,
                                          multigrid="off",
-                                         elasticity_backend="pallas")
+                                         elasticity_backend="rows")
         s = FixedStressSolver(disc, d)
         p0 = jnp.full((disc.n_pdofs,), d.p_init, disc.dtype)
         u0 = jnp.zeros((disc.n_udofs,), disc.dtype)
@@ -396,7 +394,7 @@ def test_to_rows_np_matches_device():
     the device to_rows it replaced, for both fill conventions."""
     import numpy as np
     import jax.numpy as jnp
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (
+    from poroelasticity_dealii_tpu.ops.rows3d import (
         to_rows, to_rows_np, _width)
     n = 3
     g = 2 * n + 1
@@ -413,37 +411,70 @@ def test_to_rows_np_matches_device():
     assert to_rows_np(v, n).shape == ((n + 1) * 24, _width(n))
 
 
+def _coupling_oracle(Ce, p, n):
+    """Cell-loop numpy assembly of the Q1 -> Q2 coupling RHS (flat)."""
+    g, g1 = 2 * n + 1, n + 1
+    P = np.asarray(p, np.float64).reshape(g1, g1, g1)
+    lat_p, lat_u = node_lattice(1, 3), node_lattice(2, 3)
+    out = np.zeros((g, g, g, 3))
+    for cz in range(n):
+        for cy in range(n):
+            for cx in range(n):
+                pl = np.array([P[cz + oz, cy + oy, cx + ox]
+                               for (ox, oy, oz) in lat_p])
+                ye = (Ce @ pl).reshape(27, 3)
+                for a, (ox, oy, oz) in enumerate(lat_u):
+                    out[2 * cz + oz, 2 * cy + oy, 2 * cx + ox] += ye[a]
+    return out.reshape(-1)
+
+
+def _projection_oracle(Pe, u, n):
+    """Cell-loop numpy assembly of the Q2 -> Q1 strain-projection RHS,
+    (C, n_pdofs)."""
+    g1 = n + 1
+    C = Pe.shape[0] // 8
+    U = np.asarray(u, np.float64).reshape(2 * n + 1, 2 * n + 1,
+                                          2 * n + 1, 3)
+    lat_p, lat_u = node_lattice(1, 3), node_lattice(2, 3)
+    out = np.zeros((C, g1, g1, g1))
+    for cz in range(n):
+        for cy in range(n):
+            for cx in range(n):
+                ul = np.concatenate([U[2 * cz + oz, 2 * cy + oy, 2 * cx + ox]
+                                     for (ox, oy, oz) in lat_u])
+                ye = (Pe @ ul).reshape(8, C)
+                for i, (ox, oy, oz) in enumerate(lat_p):
+                    out[:, cz + oz, cy + oy, cx + ox] += ye[i]
+    return out.reshape(C, -1)
+
+
 @pytest.mark.parametrize("n", [5, 9])
 def test_coupling_rows_pallas_matches_jnp_oracle(n):
-    """In-kernel coupling RHS (Q1 planes -> rows, `_kernel_coupling`) ==
-    the jnp index-math oracle, across the slab carry and flush tiles
-    (n=9 forces tc=8 -> 2 blocks; interpret mode, f32)."""
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (
-        make_coupling_rows, make_coupling_rows_pallas)
+    """make_coupling_rows (Q1 p -> u rows) == an independent cell-loop
+    numpy assembly, for a random (81, 8) element matrix (f32)."""
     rng = np.random.default_rng(0)
     Ce = rng.standard_normal((81, 8))
-    p = jnp.asarray(rng.standard_normal((n + 1) ** 3), jnp.float32)
-    ref = make_coupling_rows(Ce, n, jnp.float32)(p)
-    got = make_coupling_rows_pallas(Ce, n, jnp.float32, interpret=True)(p)
-    err = (np.abs(np.asarray(got - ref)).max()
+    p = rng.standard_normal((n + 1) ** 3)
+    got = rows3d.make_coupling_rows(Ce, n, jnp.float32)(
+        jnp.asarray(p, jnp.float32))
+    ref = to_rows(jnp.asarray(_coupling_oracle(Ce, p, n)), n)
+    err = (np.abs(np.asarray(got) - np.asarray(ref)).max()
            / np.abs(np.asarray(ref)).max())
     assert err < 1e-6, err
 
 
-@pytest.mark.parametrize("n,tc", [(5, 2), (5, 3), (9, 4)])
-def test_projection_rows_pallas_matches_jnp_oracle(n, tc):
-    """In-kernel strain-projection RHS (rows -> Q1 VOIGT planes,
-    `_kernel_projection`) == the jnp oracle, across the oz=1 carry, the
-    flush tile, and the padded channel rows (interpret mode, f32)."""
-    from poroelasticity_dealii_tpu.ops.pallas_comp_major import (
-        make_projection_rows, make_projection_rows_pallas, to_rows)
+@pytest.mark.parametrize("n,pad", [(5, 2), (5, 3), (9, 4)])
+def test_projection_rows_pallas_matches_jnp_oracle(n, pad):
+    """make_projection_rows (u rows -> Q1 VOIGT planes) == an independent
+    cell-loop numpy assembly, for a random (48, 81) element matrix (f32);
+    ``pad`` extra zero z-half layers (the sharded row shape) feed straight
+    in."""
     rng = np.random.default_rng(1)
     Pe = rng.standard_normal((48, 81))
-    u = jnp.asarray(rng.standard_normal((2 * n + 1) ** 3 * 3), jnp.float32)
-    R = to_rows(u, n)
-    ref = make_projection_rows(Pe, n, jnp.float32)(R)
-    got = make_projection_rows_pallas(Pe, n, jnp.float32, tc=tc,
-                                      interpret=True)(R)
-    err = (np.abs(np.asarray(got - ref)).max()
-           / np.abs(np.asarray(ref)).max())
+    u = rng.standard_normal((2 * n + 1) ** 3 * 3)
+    R = to_rows(jnp.asarray(u, jnp.float32), n)
+    R = jnp.pad(R, ((0, pad * 24), (0, 0)))
+    got = np.asarray(rows3d.make_projection_rows(Pe, n, jnp.float32)(R))
+    ref = _projection_oracle(Pe, u, n)
+    err = np.abs(got - ref).max() / np.abs(ref).max()
     assert err < 1e-6, err

@@ -1,7 +1,7 @@
 """Parity-resident 2D operator layout (ops/parity2d) vs the conv oracle.
 
 The parity layout is the 2D production mechanics path (the analogue of the
-3D Pallas row layout): these tests pin its layout-map exactness and its
+3D row layout, ops/rows3d): these tests pin its layout-map exactness and its
 operator equality against the conv-pair stencils, which are themselves
 pinned bit-for-bit against the dense oracle (tests/test_structured.py).
 """

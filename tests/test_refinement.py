@@ -1,8 +1,8 @@
 """Mixed-precision iterative refinement for f64 mechanics: an f64
 Richardson outer loop preconditioned by a full f32 inner solve
-(fss._mixed_precision_inner).  On TPU this replaces ~35 s/step of
-emulated-f64 GMG-CG with 2-3 refinement passes of f32-kernel work;
-here (CPU, knob forced 'on') we verify the math: the refined solve
+(fss._mixed_precision_inner).  On a device with slow f64 this replaces
+f64 GMG-CG with 2-3 refinement passes of f32 work; here (CPU, knob forced
+'on') we verify the math: the refined solve
 reaches the same reference tolerances and the same solution as the
 plain f64 path."""
 
@@ -115,8 +115,7 @@ def test_refined_residual_meets_reference_tolerance():
 
 
 def test_refined_bc_response_ramp_rows_inner():
-    """The same bc-scale ramp with the ROWS f32 inner (interpret Pallas on
-    CPU): regression for the free-subspace violation where _bc_response
+    """The same bc-scale ramp with the ROWS f32 inner: regression for the free-subspace violation where _bc_response
     started Richardson from x0=0, leaving the Dirichlet pattern in the
     residual — which the rows inner (apply_iter=free_apply, zero on
     constrained rows) could never reduce, spinning the inner CG to its cap
@@ -125,7 +124,7 @@ def test_refined_bc_response_ramp_rows_inner():
     data = dataclasses.replace(
         data, dtype="float64", t_max=120.0,
         mech_cg_tol=1e-12, mech_cg_relative=True,
-        elasticity_backend="pallas")
+        elasticity_backend="rows")
     n = 4
     sols = {}
     for mode in ("off", "on"):

@@ -1,7 +1,7 @@
 """Multi-chip PRODUCTION path tests (parallel/rows.py).
 
-Round-2 verdict item 1: the flagship configuration (Pallas row-layout
-mechanics + slice-stencil/fused-Jacobian pressure) must itself shard.
+The production configuration (row-layout mechanics +
+slice-stencil/fused-Jacobian pressure) must itself shard.
 Tiers:
 
 * sharded row-apply equality vs the index-math oracle (8 virtual devices);
@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from poroelasticity_dealii_tpu.config import read_input_file
-from poroelasticity_dealii_tpu.ops import pallas_comp_major as pcm
+from poroelasticity_dealii_tpu.ops import rows3d
 from poroelasticity_dealii_tpu.parallel import make_device_mesh
 from poroelasticity_dealii_tpu.parallel.rows import (
     make_row_ops_sharded, shard_production_discretization, slab_layers)
@@ -67,9 +67,9 @@ def test_sharded_rows_apply_matches_oracle(n, dmesh):
     Ke = Ke + Ke.T
     nud = (2 * n + 1) ** 3 * 3
     u = jnp.asarray(rng.standard_normal(nud), jnp.float64)
-    y0 = pcm.make_reference_apply(Ke, n, dtype=jnp.float64)(u)
+    y0 = rows3d.make_reference_apply(Ke, n, dtype=jnp.float64)(u)
     ro = make_row_ops_sharded(Ke, n, jnp.ones(nud), jnp.ones(nud), dmesh,
-                              dtype=jnp.float64, interpret=True)
+                              dtype=jnp.float64)
     R = ro.to_rows(u)
     Lz = slab_layers(n, 8)
     assert R.shape[0] == 8 * Lz * 24
@@ -84,7 +84,7 @@ def _production_pair(n, dmesh):
     data = read_input_file(DECK)
     disc = build_grid_discretization(data, cells_per_axis=n,
                                      multigrid="off",
-                                     elasticity_backend="pallas")
+                                     elasticity_backend="rows")
     sdisc = shard_production_discretization(disc, dmesh)
     return data, disc, sdisc
 
@@ -115,7 +115,7 @@ def test_mech_cg_loop_collectives_are_halo_bands(dmesh):
     n = 8
     data, disc, sdisc = _production_pair(n, dmesh)
     ro = sdisc.row_ops
-    W = pcm._width(n)
+    W = rows3d._width(n)
     band = 24 * W * jnp.dtype(sdisc.dtype).itemsize
 
     def cg5(b):

@@ -250,7 +250,7 @@ def test_custom_bounds_conv_path_matches_generic():
 @pytest.mark.parametrize("dim", [1, 2, 3])
 def test_q1_slices_fast_path_matches_conv_pair(dim):
     """make_stencil_apply's scalar-Q1 shifted-slices fast path (the
-    production pressure apply; 7.4x the conv pair on v5e) is exactly the
+    production pressure apply) is exactly the
     two-conv cellwise operator, on anisotropic grids, in f64."""
     from poroelasticity_dealii_tpu.mesh.generator import hyper_rectangle as hr
     from poroelasticity_dealii_tpu.mesh.qk import build_fe_space
